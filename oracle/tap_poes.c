@@ -3,7 +3,7 @@
  * Links against the REFERENCE DSP library (built from /root/reference/common)
  * and runs the POES TIP chain with the exact parameters used by
  * POESTIPdemod/main.c, dumping the intermediate stream after every stage to
- * raw float32 files so the TPU implementation can be diffed stage-by-stage.
+ * raw float32 files so the JAX implementation can be diffed stage-by-stage.
  *
  * This file is original test-harness code; the DSP blocks themselves are the
  * unmodified reference objects.

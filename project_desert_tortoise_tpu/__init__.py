@@ -1,4 +1,4 @@
-"""Project Desert Tortoise, TPU-native.
+"""Project Desert Tortoise in JAX.
 
 A from-scratch JAX/XLA/Pallas software-radio demodulation framework with the
 capabilities of the C reference `nebarnix/Project-Desert-Tortoise`: NOAA POES
@@ -12,8 +12,8 @@ Layout (mirrors SURVEY.md section 2's component inventory):
 - ``ops``        — the DSP kernel library (reference ``common/``):
                    Costas PLL, dynamic windowed-sinc FIR + 1:N interpolator,
                    AGC/squelch, Gardner & M&M clock recovery, Manchester
-                   decode, sync-word framers; Pallas TPU kernels in
-                   ``ops.pallas``.
+                   decode, sync-word framers; the fused Pallas GPU
+                   kernel in ``ops.pallas``.
 - ``models``     — the demodulator "model families" (reference app drivers):
                    POES TIP file/realtime, ARGOS file/realtime.
 - ``parallel``   — device-mesh sharding: block-parallel demodulation with

@@ -3,7 +3,7 @@
 Flags match ``POESTIPdemod/main.c:185-234``: ``-s`` sample rate in kHz (for
 RAW input), ``-r`` raw debug taps, ``-n`` static gain override, ``-c`` chunk
 size; positional input file.  Extra framework flags: ``--fast`` (block-
-parallel TPU path), ``--no-quirks`` (chunk-size-invariant exact mode),
+parallel path), ``--no-quirks`` (chunk-size-invariant exact mode),
 ``--out`` explicit output path.
 """
 
@@ -28,7 +28,7 @@ def build_parser(prog: str, default_mode: str) -> argparse.ArgumentParser:
     p.add_argument("-c", dest="chunk_size", type=int, default=0)
     p.add_argument("--out", default=None)
     p.add_argument("--fast", action="store_true",
-                   help="block-parallel TPU path (frame-level parity)")
+                   help="block-parallel path (frame-level parity)")
     p.add_argument("--no-quirks", action="store_true",
                    help="chunk-size-invariant exact mode")
     p.add_argument("--timebase", default="accumulated",
@@ -50,7 +50,10 @@ def run(argv=None, default_mode="poes_tip", prefix="minorFrames"):
     from project_desert_tortoise_tpu.utils import wav as W
     from project_desert_tortoise_tpu.utils import output as O
     from project_desert_tortoise_tpu.utils import metrics as M
+    from project_desert_tortoise_tpu.utils.compile_cache import (
+        enable_compile_cache)
 
+    enable_compile_cache()
     mode = get_mode(args.mode)
     if mode.np_dtype().itemsize == 8:
         import jax

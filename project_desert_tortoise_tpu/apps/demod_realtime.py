@@ -33,7 +33,7 @@ def run(argv=None, default_mode="poes_tip_realtime", prefix="minorFrames"):
     p.add_argument("--mode", default=default_mode)
     p.add_argument("--out", default=None)
     p.add_argument("--fast", action="store_true",
-                   help="route through the block-parallel TPU path (a "
+                   help="route through the block-parallel path (a "
                         "1-channel ChannelBank; offline-fast frame parity, "
                         "core+tail output latency) instead of the exact "
                         "sample-sequential chain")
@@ -43,7 +43,10 @@ def run(argv=None, default_mode="poes_tip_realtime", prefix="minorFrames"):
     from project_desert_tortoise_tpu.models.streaming import (
         FastStreamingDemodulator, StreamingDemodulator, follow_raw_file)
     from project_desert_tortoise_tpu.utils import output as O
+    from project_desert_tortoise_tpu.utils.compile_cache import (
+        enable_compile_cache)
 
+    enable_compile_cache()
     mode = get_mode(args.mode)
     fs = args.rate_khz * 1000.0
     out_path = args.out or O.default_output_name(prefix)

@@ -1,7 +1,7 @@
 """CLI: batched multi-channel serving (`parallel/serving.ChannelBank`).
 
 The reference runs one process per channel
-(``POESTIPdemodPortAudio/main.c``); here N channels share one chip: each
+(``POESTIPdemodPortAudio/main.c``); here N channels share one card: each
 input file (wav, or SDR# RAW with ``-s`` rate) feeds a channel of the
 bank, ready time-blocks from all channels batch into single device
 dispatches, and frames stream into per-channel output files as they
@@ -37,24 +37,24 @@ def run(argv=None):
                    help="sample staging dtype: int16 ships raw PCM planes "
                         "and converts on device (half the staged bytes; "
                         "default when every input is 16-bit PCM)")
-    p.add_argument("--use-pallas", default="0", choices=["0", "front",
-                                                         "fused"],
-                   help="device demod path: XLA scans (default), the "
-                        "front Pallas kernel, or the fully fused kernel "
-                        "(needs --batch-blocks a multiple of 128; batches "
-                        "are padded to that shape)")
+    p.add_argument("--use-pallas", default="auto",
+                   choices=["auto", "0", "fused"],
+                   help="device demod path: auto (default: the fused "
+                        "kernel on a GPU, XLA scans on the CPU), XLA scans, "
+                        "or the fused kernel")
     args = p.parse_args(argv)
-    use_pallas = {"0": False, "front": "front",
+    use_pallas = {"auto": None, "0": False,
                   "fused": "fused"}[args.use_pallas]
-    if use_pallas == "fused" and args.batch_blocks % 128 != 0:
-        p.error("--use-pallas fused needs --batch-blocks % 128 == 0")
 
     import numpy as np
     from project_desert_tortoise_tpu.models.registry import get_mode
     from project_desert_tortoise_tpu.parallel import blocked as BL
     from project_desert_tortoise_tpu.parallel.serving import ChannelBank
     from project_desert_tortoise_tpu.utils import output as O, wav as W
+    from project_desert_tortoise_tpu.utils.compile_cache import (
+        enable_compile_cache)
 
+    enable_compile_cache()
     mode = get_mode(args.mode)
     recs = []      # per channel: (re, im) planes — int16 or float32
     fs = None
@@ -104,7 +104,6 @@ def run(argv=None):
     plan = BL.default_plan(mode, fs, core=args.core) if args.core else None
     bank = ChannelBank(mode, fs, len(recs), plan=plan,
                        batch_blocks=args.batch_blocks,
-                       window=256 if use_pallas == "fused" else 4096,
                        use_pallas=use_pallas,
                        stage_dtype=np.int16 if int16_ok else np.float32,
                        on_frame=lambda ci, fr: writers[ci].write(fr))

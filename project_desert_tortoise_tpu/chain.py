@@ -1,6 +1,6 @@
 """The demodulation chain: explicit state + one jitted chunk step.
 
-This is the TPU reformulation of the reference's chunked ``while(!feof)``
+This is the JAX reformulation of the reference's chunked ``while(!feof)``
 driver loop (``POESTIPdemod/main.c:373-492``): every C static local across
 the DSP library becomes a field of `ChainState` (a small serializable pytree
 — simultaneously the streaming-session state, the checkpoint format, and the

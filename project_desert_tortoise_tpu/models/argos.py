@@ -3,7 +3,7 @@
 The reference file app runs in double precision (ARGOSdemod/config.h
 USE_FLOATS=0); exact mode therefore requires jax x64 (enabled on import of
 this module's `enable_x64` helper or by the CLI) and runs on CPU.  The fast
-block-parallel path uses float32 on TPU (frame-level parity holds).
+block-parallel path uses float32 (frame-level parity holds).
 """
 import jax
 

@@ -105,14 +105,14 @@ class StreamingDemodulator:
 
 
 class FastStreamingDemodulator:
-    """Ring-fed streaming demodulation through the TPU fast path.
+    """Ring-fed streaming demodulation through the block-parallel fast path.
 
     Same surface as :class:`StreamingDemodulator` (``ring`` / ``run`` /
     ``stop`` / ``frames`` / ``status_line``) but backed by a
     :class:`~project_desert_tortoise_tpu.parallel.serving.ChannelBank`, so
     the single-channel realtime CLI rides the same block-parallel device
-    path as offline ``--fast`` and the multi-channel server (VERDICT r3
-    weak #5: the flagship realtime path must reach the TPU kernels).
+    path as offline ``--fast`` and the multi-channel server (the fused
+    kernel on a GPU, the XLA scans on the CPU: ``use_pallas=None``).
 
     Latency tradeoff vs the exact streamer: frames for core interval k are
     emitted once (k+1)*core + tail samples have arrived (the serving
@@ -124,7 +124,7 @@ class FastStreamingDemodulator:
                  norm_factor: Optional[float] = None,
                  on_frame: Optional[Callable[[Frame], None]] = None,
                  plan=None, batch_blocks: int = 16,
-                 window: int = 4096, use_pallas=False,
+                 window: int = 4096, use_pallas=None,
                  ring_capacity: int = 1 << 20):
         from project_desert_tortoise_tpu.parallel.serving import ChannelBank
         if ring is None:

@@ -1,7 +1,7 @@
 // wavio.cpp — native IO runtime: WAV/RAW ingest + PCM->float conversion +
 // lock-free SPSC ring buffer for the streaming (realtime-analogue) path.
 //
-// TPU-native counterpart of the reference's C ingest layer
+// Native counterpart of the reference's C ingest layer
 // (common/wave.c: ReadWavHeader wave.c:303, GetComplexWaveChunk wave.c:59,
 // GetComplexRawChunk wave.c:413) and of the PortAudio callback plumbing in the
 // realtime apps.  The hot loop (interleaved PCM -> planar float I/Q with

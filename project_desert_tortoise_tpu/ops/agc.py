@@ -68,7 +68,7 @@ def agc_scan(state: AGCState, x, attack_rate: float, decay_rate: float,
     """GNURadio-style attack/decay AGC (``AGC.c:78-132``).
 
     x: (..., n), scanned over the last axis.  Returns (state, y).
-    `window > 0` nests the scan over VMEM-sized chunks (see pll_scan).
+    `window > 0` nests the scan over fixed-size chunks (see pll_scan).
     """
     dt = x.dtype
     c = lambda v: jnp.asarray(v, dt)

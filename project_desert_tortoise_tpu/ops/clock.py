@@ -152,12 +152,13 @@ def gardner_manchester_windowed(g_state, m_state, x, t, n, step_size: float,
                                 err_limit: float, kp: float,
                                 resync_threshold: float, window: int,
                                 margin: int = None, unroll: int = 2):
-    """Fused Gardner + Manchester over VMEM-sized windows — the fast path.
+    """Fused Gardner + Manchester over fixed-size windows — the XLA fast
+    path.
 
     The monolithic `gardner_scan` gathers from the whole (B, cap) array every
-    step; when that array exceeds VMEM the per-step gather goes to HBM and
-    dominates the entire pipeline.  Here an outer scan walks length-`window`
-    chunks (each a loop-local VMEM buffer, plus a `margin` of left-context for
+    step, which dominates the pipeline once that array is large.  Here an
+    outer scan walks length-`window` chunks (each a loop-local buffer, plus
+    a `margin` of left-context for
     the mid-bit read) and an inner masked scan recovers that window's symbols
     and Manchester-decodes them in the same step.  Identical arithmetic to the
     separate scans; symbol order is preserved via emit masks.

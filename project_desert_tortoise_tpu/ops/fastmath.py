@@ -45,6 +45,19 @@ def q_rsqrt(x):
     return g.astype(jnp.result_type(x))
 
 
+def round_half_even(x):
+    """``jnp.round`` (half to even, signed zeros kept) from floor, compare
+    and select alone -- ops every kernel route lowers.  ``x - floor(x)`` is
+    exact in binary floating point, so ties are detected exactly."""
+    dt = jnp.result_type(x)
+    f = jnp.floor(x)
+    d = x - f
+    odd = (f - 2.0 * jnp.floor(f * 0.5)) != 0
+    up = (d > 0.5) | ((d == 0.5) & odd)
+    r = f + up.astype(dt)
+    return jnp.where(r == 0, x * 0, r)    # -0.5 -> -0.0, like jnp.round
+
+
 def sign(x):
     """C-style sign: (x > 0) - (x < 0), in the input dtype."""
     dt = jnp.result_type(x)

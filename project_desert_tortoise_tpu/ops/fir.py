@@ -1,4 +1,4 @@
-"""Dynamic lowpass FIR design and TPU-friendly (interpolating) application.
+"""Dynamic lowpass FIR design and vectorized (interpolating) application.
 
 Design (`make_lpfir`) mirrors ``common/LowPassFilter.c:127-175``: windowed-sinc
 ideal response, Blackman window, taps scaled by the interpolation factor so the
@@ -84,6 +84,9 @@ def fir_interp(x, taps, interp: int, history=None):
         lhs_dilation=(interp,),
         dimension_numbers=("NCW", "IOW", "NCW"),
         preferred_element_type=x.dtype,
+        # float32 taps and data must not run in TF32 on a GPU: the exact
+        # path holds line-for-line parity with the C oracle
+        precision=jax.lax.Precision.HIGHEST,
     )
     out_len = x.shape[-1] * interp
     return y.reshape(batch_shape + (-1,))[..., :out_len]

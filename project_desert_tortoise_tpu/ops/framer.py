@@ -155,7 +155,7 @@ def frame_extract(bits, times, n_bits, cfg, max_frames: int):
     # (payload bits), an accepted sync suppresses the remainder of its own
     # window, so each window accepts AT MOST the first match at or past the
     # carried re-arm position — a scan over nb/payload windows instead of nb
-    # bits (the per-bit scan was 143 ms of a 200 ms TPU batch, VERDICT r1).
+    # bits (a per-bit scan dominated the extract cost).
     nw = -(-nb // payload)
     pad = nw * payload - nb
     m_w = jnp.moveaxis(
@@ -170,7 +170,9 @@ def frame_extract(bits, times, n_bits, cfg, max_frames: int):
         has = jnp.any(ok_row, axis=-1)
         first_rel = jnp.argmax(ok_row, axis=-1)
         accept = ok_row & (rel == first_rel[..., None])
-        carry_end = jnp.where(has, base + first_rel + payload, carry_end)
+        # int32 carry also under jax_enable_x64 (argmax is int64 there)
+        carry_end = jnp.where(has, (base + first_rel + payload)
+                              .astype(carry_end.dtype), carry_end)
         return carry_end, accept
 
     _, acc_w = jax.lax.scan(
@@ -184,9 +186,8 @@ def frame_extract(bits, times, n_bits, cfg, max_frames: int):
     accepted = accepted & fits
 
     # compress accepted positions into frame slots: the first max_frames
-    # accepted positions per lane == top_k of (-pos | -BIG) — much cheaper
-    # than an XLA scatter, which serializes on TPU (the old _scatter_ix was
-    # ~100 ms/batch of the round-1 extract cost)
+    # accepted positions per lane == top_k of (-pos | -BIG), cheaper than
+    # an XLA scatter
     big = jnp.int32(nb + 1)
     keyed = jnp.where(accepted, -pos_ids, -big)
     topv, topi = jax.lax.top_k(keyed, max_frames)
@@ -198,8 +199,8 @@ def frame_extract(bits, times, n_bits, cfg, max_frames: int):
     f_times = jnp.take_along_axis(times, sync_pos, axis=-1)
 
     # Payload extraction.  Gathering all `payload` bits per candidate frame
-    # (max_frames x 832 indices per lane) dominated the round-1 extract cost
-    # — TPU gathers are expensive per index.  Instead, pre-pack BYTE values
+    # (max_frames x 832 indices per lane) is gather-heavy.  Instead,
+    # pre-pack BYTE values
     # at every bit offset with two small correlations, then gather one value
     # per output byte (8x fewer indices):
     #   byteval[i]  = sum_b bits[i+b] * 2^(7-b)          (8-tap conv)
@@ -273,6 +274,8 @@ def _corr_first(x, weights):
     batch = x.shape[:-1]
     lhs = x.reshape((-1, 1, x.shape[-1])).astype(jnp.float32)
     rhs = np.asarray(weights, np.float32).reshape(1, 1, p)
+    # TF32 is exact here: 0/1 bits times powers of two, integer sums far
+    # below 2^24
     y = jax.lax.conv_general_dilated(
         lhs, rhs, (1,), [(0, p - 1)], dimension_numbers=("NCW", "IOW", "NCW"))
     return jnp.round(y).astype(jnp.int32).reshape(batch + (x.shape[-1],))
@@ -284,6 +287,7 @@ def _corr_last(bipolar, pat):
     batch = bipolar.shape[:-1]
     lhs = bipolar.reshape((-1, 1, bipolar.shape[-1])).astype(jnp.float32)
     rhs = pat.reshape((1, 1, p)).astype(jnp.float32)
+    # TF32 is exact here: +-1 samples times +-1 pattern, integer sums
     y = jax.lax.conv_general_dilated(
         lhs, rhs, (1,), [(p - 1, 0)], dimension_numbers=("NCW", "IOW", "NCW"))
     return jnp.round(y).astype(jnp.int32).reshape(batch + (bipolar.shape[-1],))

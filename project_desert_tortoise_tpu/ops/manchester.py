@@ -93,8 +93,8 @@ def compress_stream(values, times, mask, capacity: int):
 def compress_sorted(values, times, mask, capacity: int):
     """`compress_stream` via a stable sort instead of a scatter.
 
-    XLA scatters serialize on TPU (~100 ms for 128x118k rows); a stable
-    2-way-key sort is ~4x cheaper and order-preserving by stability.
+    A stable 2-way-key sort avoids an XLA scatter and is order-preserving
+    by stability.
     Semantics identical to `compress_stream`: masked entries packed to the
     front, zeros past `count`.
     """

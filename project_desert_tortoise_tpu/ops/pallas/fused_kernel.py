@@ -1,24 +1,32 @@
-"""Fully fused demod Pallas kernel: PLL -> FIR-interp -> AGC -> Gardner ->
-Manchester in ONE pass, no intermediate HBM traffic.
+"""Fully fused demod kernel: PLL -> polyphase FIR -> AGC -> Gardner ->
+Manchester for every input sample in ONE Pallas kernel, Triton route.
 
-Extends chain_kernel.py with timing recovery: the `interp` outputs of each
-input sample rotate through a small VMEM ring (values + times); a lane emits
-a symbol when its fractional pointer crosses the newest produced interp index,
-reading the on-time sample from the ring with an unrolled slot-select (the
-per-lane dynamic index that made the XLA path gather-bound becomes a few
-compare+selects on vregs).  The Gardner MID-BIT sample — ``step_size/2``
-outputs behind the on-time read in the reference
-(``GardenerClockRecovery.c:78``) — is NOT served by a deep ring: its target
-index is set at the previous emission and always lies in the future at that
-point, so a one-plane capture latch grabs the value the body step it is
-produced (round-5 diet; the ARGOS geometry previously carried 26 value
-planes for this one read).  Manchester decodes emitted symbols in the same
-step.  Since the symbol stride (Fs*interp/baud) exceeds `interp`, each lane
-emits at most one bit per input sample, so outputs are dense per-sample
-planes with emit masks — compressed downstream exactly like the scan
-path's.
+Layout: one lane (an independent demod block) per thread.  The grid runs
+over lane tiles of ``LANE_TILE`` lanes; each program runs the WHOLE time
+loop of its tile as a ``fori_loop`` whose carry (the chain's entire state,
+49 values per lane for POES, 73 for ARGOS) stays in registers.  Sample
+planes are time-major ``(L, B)``, so each step loads one coalesced row of
+the tile's lanes, and nothing but the inputs, the two output planes and the
+state is ever touched in device memory.  The chain is a serial feedback loop
+per lane; an XLA ``lax.scan`` of it runs as a device loop with a kernel
+launch per step, which this kernel replaces by one launch per call.
 
-Output parity with the XLA op path is exact (see tests/test_pallas_fused.py).
+Timing recovery: the ``interp`` outputs of each input sample rotate through
+a shallow shift-register ring (values + sample positions); a lane emits a
+symbol when its fractional pointer crosses the newest produced interp index,
+reading the on-time sample from the ring with an unrolled compare-select.
+The Gardner
+MID-BIT sample -- ``step_size/2`` outputs behind the on-time read in the
+reference (``GardenerClockRecovery.c:78``) -- is caught by a one-value
+capture latch: its target index is set at the previous emission and always
+lies in the future at that point, so the latch grabs the value the step it is
+produced.  Manchester decodes emitted symbols in the same step.  Since the
+symbol stride (Fs*interp/baud) exceeds ``interp``, each lane emits at most
+one bit per input sample, so outputs are dense per-sample planes with emit
+marks, compressed downstream exactly like the scan path's.
+
+Output parity with the XLA op path is exact on the CPU (interpret mode, see
+tests/test_pallas_fused.py).
 """
 
 from __future__ import annotations
@@ -29,116 +37,90 @@ import numpy as np
 import jax
 import jax.numpy as jnp
 from jax.experimental import pallas as pl
-from jax.experimental.pallas import tpu as pltpu
+from jax.experimental.pallas import triton as plgpu_triton
 
 from project_desert_tortoise_tpu.ops import pll as pll_ops
-from project_desert_tortoise_tpu.ops.fastmath import sign
-from project_desert_tortoise_tpu.ops.pallas.chain_kernel import _polyphase
+from project_desert_tortoise_tpu.ops.fastmath import round_half_even, sign
 
-LANES = 128
-# default body unroll for compiled (Mosaic) lowering: consecutive samples'
-# FIR/AGC/Gardner vector work overlaps the serial PLL dependency chain in
-# the scheduler.  Measured round 3 at (B=1024, core=225280, window=256):
-# U=1 -> 1173 Msps, 8 -> 1288, 32 -> 1312 (tune_results.json); gains
-# flatten past 32.  Interpret mode defaults to 1 (8-32x trace blowup for
-# zero benefit); outputs are bit-exact across U (test_pallas_fused).
-DEFAULT_UNROLL = 32
+# lanes per program, one per thread (num_warps = LANE_TILE // 32); chosen by
+# the lane-tile sweep on the card (PERF.md)
+LANE_TILE = 32
+
+
+def _polyphase(taps, interp: int):
+    """g[p][m] = h[(N-1-p) - m*interp] as python floats.
+
+    Output phase p of input sample i is
+        y[i*interp + p] = sum_m g[p][m] * x[i - m],  m = 0..N/interp-1,
+    the reference's zero-stuff circular FIR in steady state
+    (``LowPassFilter.c:58-67``; matches ops/fir.py)."""
+    n = len(taps)
+    hist = n // interp
+    return [[float(taps[(n - 1 - p) - m * interp]) for m in range(hist)]
+            for p in range(interp)]
 
 
 def ring_size(step_size: float, err_limit: float, interp: int) -> int:
     """Mid-bit history depth: the Gardner half-sample lies ``step_size/2``
     outputs behind the newest, plus timing-error slack.  16 covers POES
-    (step ~9); ARGOS needs 26 (step 40 -> half offset 20) — with a fixed
-    RING=16 the interp==1 modes silently read hval=0 and the timing loop
-    free-ran (round-3 bug fix, caught by test_blocked_argos line parity).
-
-    Since the round-5 capture-latch diet the FUSED kernel no longer carries
-    a ring this deep (its value ring is ``ring_t_size`` planes and the
-    mid-bit read is a one-plane latch); this sizing still governs the
-    XLA windowed variant's buffer image (ops/clock.py)."""
+    (step ~9); ARGOS needs 26 (step 40 -> half offset 20).  The fused kernel
+    serves the mid-bit read with a capture latch instead; this sizing
+    governs the XLA windowed variant's buffer image (ops/clock.py)."""
     need = int(np.ceil(step_size / 2.0 + err_limit)) + interp + 2
     return max(16, -(-need // 2) * 2)
 
 
 def ring_t_size(step_size: float, err_limit: float, interp: int) -> int:
-    """Time-ring depth — much shallower than the value ring (VERDICT r4
-    item 3, the ARGOS S=16 VMEM wall).
-
-    Only the VALUE ring is read at deep ages (the Gardner mid-bit sample,
-    ``step_size/2`` behind).  The time ring serves just the ON-TIME read:
-    its age is ``j_hi - round(next_sample)``, bounded by the emission
-    condition (``target <= j_hi``, and each emission advances the pointer
-    by ``step_size > interp``) to ``interp - 1`` plus the clamped timing
-    error (``err_limit``, 0.1 samples for both reference modes,
-    POESTIPdemod/main.c:111 / ARGOSdemod config).  Sizing it to
-    ``interp + ceil(err_limit) + 2`` drops ~20 dead state planes from the
-    ARGOS geometry (ring 26 -> time ring 4-6), which is what let the
-    interp==1 kernel onto the 16-sublane rung."""
+    """On-time ring depth.  Its read age is ``j_hi - round(next_sample)``,
+    bounded by the emission condition (``target <= j_hi``, and each
+    emission advances the pointer by ``step_size > interp``) to
+    ``interp - 1`` plus the clamped timing error (``err_limit``, 0.1
+    samples for both reference modes, POESTIPdemod/main.c:111 / ARGOSdemod
+    config), so ``interp + ceil(err_limit) + 2`` entries suffice."""
     need = interp + int(np.ceil(err_limit)) + 2
     return min(max(4, -(-need // 2) * 2),
                ring_size(step_size, err_limit, interp))
 
 
-def _ring_read(ring_planes, age):
-    """age: (S,128) int32, 0 = newest; unrolled compare-select over the
+def _ring_read(ring, age):
+    """age: int32 lanes, 0 = newest; unrolled compare-select over the
     shift-register ring."""
-    acc = jnp.zeros_like(ring_planes[0])
-    for k in range(len(ring_planes)):
-        acc = jnp.where(age == k, ring_planes[k], acc)
+    acc = jnp.zeros_like(ring[0])
+    for k in range(len(ring)):
+        acc = jnp.where(age == k, ring[k], acc)
     return acc
 
 
-def _kernel(cp, agc_params, poly, interp, window, squelch_pos, ring_t,
-            n_tg, unroll, tgen_ts, in_scale, *refs):
-    if tgen_ts is None:
-        (re_ref, im_ref, tn_ref, st_in_ref,
-         be_ref, btime_ref, st_out_ref, st_scratch) = refs
-    else:
-        # time-generation mode: no staged time plane; the kernel rebuilds
-        # the reference's accumulated-f32 axis from per-block seeds
-        # (bit-exact: the same sequential t += Ts left fold, wave.c:167)
-        (re_ref, im_ref, st_in_ref,
-         be_ref, btime_ref, st_out_ref, st_scratch) = refs
-        tn_ref = None
+def _kernel(cp, agc_params, poly, interp, n_steps, ring_t, n_tg, in_scale,
+            re_ref, im_ref, st_in_ref, be_ref, bt_ref, st_out_ref):
     (attack, decay, reference, max_gain, min_gain, squelch_thr) = agc_params
     hist_len = len(poly[0])
-    # state plane layout (round-5 diet: shallow value ring + mid-bit
-    # capture latch + grouped time ring + merged prev_bit/mcur plane)
-    P0 = 0           # PLL: 6
-    H0 = 6           # FIR history: hist_len
-    G0 = H0 + hist_len            # AGC gain: 1
-    R0 = G0 + 1                   # on-time value ring: ring_t (shallow)
-    HL = R0 + ring_t              # mid-bit capture latch: 1
-    T0 = HL + 1                   # time ring, one plane per interp group: n_tg
-    GD = T0 + n_tg                # gardner ns, half: 2 (prev merged into MA+2)
-    MA = GD + 2                   # manchester clockmod, evenodd, prev_sym
-    #                               (== gardner prev_bit), prev, prevprev: 5
+    # state layout: PLL (6) | FIR history (hist_len) | AGC gain (1) |
+    # on-time value ring (ring_t) | mid-bit latch (1) | time ring, one entry
+    # per interp group (n_tg) | Gardner ns, half (2) | Manchester clockmod,
+    # evenodd, prev_sym (== Gardner prev_bit), prev, prevprev (5)
+    P0 = 0
+    H0 = 6
+    G0 = H0 + hist_len
+    R0 = G0 + 1
+    HL = R0 + ring_t
+    T0 = HL + 1
+    GD = T0 + n_tg
+    MA = GD + 2
+    n_state = MA + 5
 
-    w = pl.program_id(0)
-
-    @pl.when(w == 0)
-    def _():
-        st_scratch[:] = st_in_ref[:]
-
-    # loop state lives in the fori_loop carry (vector registers); VMEM
-    # scratch is only touched at window boundaries
-    TG = MA + 5      # time-gen (optional): t_cur, pad countdown
-    n_state = MA + 5 + (2 if tgen_ts is not None else 0)
-    s0 = st_scratch[:]
-
-    def body(i, carry):
-        s = carry
+    def body(i, s):
         dt = s[0].dtype
         c = lambda v: jnp.asarray(v, dt)
         st = pll_ops.PLLState(
             phase=s[P0], freq=s[P0 + 1], locksig=s[P0 + 2],
             avg_phase=s[P0 + 3], sweep=s[P0 + 4], locked=s[P0 + 5] > 0.5)
         xre, xim = re_ref[i], im_ref[i]
-        if in_scale is not None:     # int16 PCM window: exact wave.c:117
+        if in_scale is not None:     # int16 PCM rows: exact wave.c:117
             xre = xre.astype(dt) * c(in_scale)
             xim = xim.astype(dt) * c(in_scale)
         new, (soft, lock) = pll_ops._step(cp.pll, st, xre, xim)
-        if squelch_pos == "after_pll":
+        if cp.squelch_position == "after_pll":
             # |lock|: block relock may settle at the inverted BPSK point
             # (see parallel/blocked.py squelch note)
             soft = jnp.where(jnp.abs(lock) < c(squelch_thr),
@@ -149,21 +131,13 @@ def _kernel(cp, agc_params, poly, interp, window, squelch_pos, ring_t,
         ring_v = [s[R0 + k] for k in range(ring_t)]
         hlatch = s[HL]
         tgroups = [s[T0 + k] for k in range(n_tg)]
-        if tgen_ts is None:
-            tval_in = tn_ref[i]
-            tg_tail = []
-        else:
-            t_cur, pcnt = s[TG], s[TG + 1]
-            # pcnt counts down through zero-padded head positions (block 0
-            # only); at pcnt == 0 the emitted time is the seed itself, then
-            # the accumulated fold continues
-            tval_in = jnp.where(pcnt > 0, jnp.zeros_like(t_cur), t_cur)
-            t_cur = jnp.where(pcnt <= 0, t_cur + c(tgen_ts), t_cur)
-            tg_tail = [t_cur, pcnt - 1.0]
+        # the time axis is the block-local sample position (exact in f32
+        # below 2^24 samples); the host maps it to the recording's times
+        pos_in = jnp.broadcast_to(i.astype(dt), soft.shape)
 
-        # ring is a shift register, entry k = interp output at age k
-        # (0 = newest); produce this sample's `interp` outputs newest-first
-        j_base = (w * window + i) * interp
+        # ring entry k = interp output at age k (0 = newest); produce this
+        # sample's `interp` outputs (AGC.c:98-130 per output)
+        j_base = i * interp
         produced = []
         for p in range(interp):
             y = jnp.zeros_like(soft)
@@ -175,12 +149,12 @@ def _kernel(cp, agc_params, poly, interp, window, squelch_pos, ring_t,
             gain = gain - error * rate
             gain = jnp.where(gain < 0.0, c(min_gain), gain)
             gain = jnp.where(gain > c(max_gain), c(max_gain), gain)
-            if squelch_pos == "after_agc":
+            if cp.squelch_position == "after_agc":
                 y = jnp.where(jnp.abs(lock) < c(squelch_thr),
                               jnp.zeros_like(y), y)
             produced.append(y)
         ring_v = produced[::-1] + ring_v[:ring_t - interp]
-        tgroups = [tval_in] + tgroups[:n_tg - 1]
+        tgroups = [pos_in] + tgroups[:n_tg - 1]
 
         # --- Gardner: emit at most one symbol this input sample ---
         ns, half_raw = s[GD], s[GD + 1]
@@ -191,27 +165,23 @@ def _kernel(cp, agc_params, poly, interp, window, squelch_pos, ring_t,
         # mid-bit capture: the half target set at the previous emission is
         # always strictly ahead of j_hi at that point (half_new - j_hi >=
         # step/2 - err_limit - interp > 0 for both reference geometries), so
-        # the value at round(half_raw) is latched the body step it is
-        # produced instead of being served by a step/2-deep ring; negative
-        # or never-produced targets leave the latch at its reset value 0.0,
-        # exactly the old out-of-ring read (GardenerClockRecovery.c:78-83)
-        hidx = jnp.round(half_raw).astype(jnp.int32)
+        # the value at round(half_raw) is latched the step it is produced;
+        # negative or never-produced targets leave the latch at its reset
+        # value 0.0 (GardenerClockRecovery.c:78-83)
+        hidx = round_half_even(half_raw).astype(jnp.int32)
         off = hidx - j_base
         capv = jnp.zeros_like(soft)
         for p in range(interp):
             capv = jnp.where(off == p, produced[p], capv)
         hlatch = jnp.where((off >= 0) & (off < interp), capv, hlatch)
 
-        target = jnp.round(ns)
+        target = round_half_even(ns)
         emit_sym = target <= j_hi
         tgt_i = jnp.maximum(target.astype(jnp.int32), 0)
-        # the on-time read age is bounded by interp + clamped timing error
-        # (ring_t_size) — the ring carries only that depth
         age = jnp.clip(j_hi - tgt_i, 0, ring_t - 1)
         cur = _ring_read(ring_v, age)
         # time ring entries are inserted `interp` at a time with one value,
-        # so group g = age // interp holds the time; select over the
-        # n_tg = ceil(ring_t/interp) group planes
+        # so group g = age // interp holds the time
         sym_t = tgroups[-1]
         for k in reversed(range(n_tg - 1)):
             sym_t = jnp.where(age < (k + 1) * interp, tgroups[k], sym_t)
@@ -243,11 +213,10 @@ def _kernel(cp, agc_params, poly, interp, window, squelch_pos, ring_t,
                         1.0 - (cur > 0).astype(dt))
         emit_bit = emit_sym & boundary
 
-        # merged bit+emit output plane (one less (window, S, 128) VMEM
-        # out buffer): value in {0, 1} when no emission, {2, 3} = 2 + bit
-        # on emission — exact small integers in f32
+        # merged bit+emit output plane: value in {0, 1} when no emission,
+        # {2, 3} = 2 + bit on emission -- exact small integers in f32
         be_ref[i] = bit + 2.0 * emit_bit.astype(dt)
-        btime_ref[i] = sym_t
+        bt_ref[i] = sym_t
 
         clockmod = jnp.where(emit_sym, clockmod_n, clockmod)
         evenodd = jnp.where(emit_sym,
@@ -260,77 +229,43 @@ def _kernel(cp, agc_params, poly, interp, window, squelch_pos, ring_t,
             [new.phase, new.freq, new.locksig, new.avg_phase, new.sweep,
              new.locked.astype(dt)] + hist + [gain] + ring_v + [hlatch]
             + tgroups + [ns, half_raw]
-            + [clockmod, evenodd, prev_sym, mprev, mprevprev] + tg_tail)
+            + [clockmod, evenodd, prev_sym, mprev, mprevprev])
 
-    if unroll == 1:
-        final = jax.lax.fori_loop(
-            0, window, body, tuple(s0[k] for k in range(n_state)))
-    else:
-        # hand-unrolled: Mosaic's fori only lowers unroll=1 or full, so we
-        # unroll in the body.  Consecutive samples' FIR/AGC/Gardner work is
-        # independent of each other's PLL updates EXCEPT through the carried
-        # state, so the scheduler can overlap sample u+1's transcendentals
-        # with sample u's tail — the chain is latency-bound (DESIGN.md 7).
-        def body_u(j, carry):
-            s = carry
-            for u in range(unroll):
-                s = body(j * unroll + u, s)
-            return s
-        final = jax.lax.fori_loop(
-            0, window // unroll, body_u, tuple(s0[k] for k in range(n_state)))
-    st_scratch[:] = jnp.stack(list(final))
-
-    @pl.when(w == pl.num_programs(0) - 1)
-    def _():
-        st_out_ref[:] = st_scratch[:]
+    # the state is read once, carried in registers through the whole time
+    # loop, and written once
+    s0 = tuple(st_in_ref[k] for k in range(n_state))
+    final = jax.lax.fori_loop(0, n_steps, body, s0)
+    for k in range(n_state):
+        st_out_ref[k] = final[k]
 
 
-@functools.partial(jax.jit,
-                   static_argnames=("chain_params", "window", "interpret",
-                                    "unroll", "ts"))
-def fused_demod_pallas(chain_params, pll_state, agc_gain, z, t_next,
-                       window: int = 512, interpret: bool = False,
-                       unroll: int = 0, t_seed=None, t_pad0=None,
-                       ts: float = 0.0):
-    """Full chain on (B, L) blocks; B % 128 == 0, L % window == 0.
+def pad_lanes(b: int) -> int:
+    """Lane count rounded up to whole tiles (the kernel's launch width)."""
+    return -(-b // LANE_TILE) * LANE_TILE
 
-    t_next: (B, L) stage time axis (see blocked.demod_blocks), or None to
-    regenerate it in-kernel (time-generation mode): pass per-block
-    ``t_seed`` (B,) — the axis value at the block's first valid sample —
-    and ``t_pad0`` (B,) — the count of zero-padded head positions (only
-    block 0 of a recording has any) — plus the static step ``ts`` = 1/fs
-    in stream dtype.  Bit-exact vs the staged plane (the same sequential
-    f32 ``t += Ts`` fold, wave.c:167) everywhere except zero-padded
-    tail positions past the end of the recording, where the generated axis
-    keeps accumulating instead of reading 0 — positions whose frames the
-    core-interval stitcher drops either way.  Saves one (B, L) f32 plane
-    of HBM traffic and, in the flat E2E path, a third of the host->device
-    upload bytes.
-    Returns (bits (B, L) float 0/1, bit_times (B, L), emit_mask (B, L) bool,
-    avg_phase (B,)).  At most one bit per input sample per lane.
 
-    z may be int16 PCM planes: the kernel DMAs the half-width windows and
+@functools.partial(jax.jit, static_argnames=("chain_params", "interpret"))
+def fused_demod_pallas(chain_params, pll_state, agc_gain, z,
+                       interpret: bool = False):
+    """Full chain on (B, L) blocks, any B (lanes are padded to whole tiles
+    with silent lanes whose outputs are sliced off).
+
+    Returns (bits (B, L) float 0/1, bit_pos (B, L), emit_mask (B, L) bool,
+    avg_phase (B,)): bit_pos is the block-local position of the input
+    sample whose interp group holds the bit's on-time sample, the same axis
+    the XLA path carries when given ``arange(L)`` as its time plane.  At
+    most one bit per input sample per lane.
+
+    z may be int16 PCM planes: the kernel loads the half-width rows and
     applies the exact /32768 normalization in-body (bit-identical to a
-    separate conversion pass, minus two full-plane HBM materializations).
+    separate conversion pass).
+
+    interpret=True runs the kernel through the Pallas interpreter: only for
+    arrays on the CPU (tests, CPU virtual meshes).
     """
     zre, zim = z
     B, L = zre.shape
-    assert B % LANES == 0 and L % window == 0, (B, L, window)
-    tgen = t_next is None
-    if tgen:
-        assert t_seed is not None and t_pad0 is not None and ts > 0.0
-    if unroll == 0:
-        unroll = 1 if interpret else DEFAULT_UNROLL
-    while window % unroll:
-        unroll //= 2              # keep any odd window size working
-
-    S = B // LANES
     in_i16 = zre.dtype == jnp.int16
-    # int16 PCM planes are consumed directly: the window DMA moves half the
-    # bytes and the exact /32768 normalization of ``common/wave.c:117``
-    # happens in-body (int16 -> f32 and the 2^-15 scale are both lossless,
-    # so this is bit-identical to converting in a separate XLA pass — which
-    # also materialized two full f32 planes in HBM first)
     dt = jnp.float32 if in_i16 else zre.dtype
     interp = chain_params.interp
     poly = tuple(tuple(r) for r in _polyphase(chain_params.taps, interp))
@@ -342,8 +277,8 @@ def fused_demod_pallas(chain_params, pll_state, agc_gain, z, t_next,
     # interp + 0.5; requiring that to exceed 0.5 (round-half-even) gives
     # step/2 - err_limit - interp > 0.  POES: 4.55 - 0.1 - 3 = 1.45;
     # ARGOS: 20 - 0.1 - 1 = 18.9.  Custom geometries that violate it must
-    # use the XLA scan path (the latch would miss targets the old deep
-    # ring served).
+    # use the XLA scan path (the latch would miss targets a deep ring
+    # serves).
     margin = (chain_params.step_size / 2.0
               - chain_params.gardner_err_limit - interp)
     if margin <= 0:
@@ -352,63 +287,52 @@ def fused_demod_pallas(chain_params, pll_state, agc_gain, z, t_next,
             f"step_size/2 - err_limit - interp = {margin:.3f} <= 0 "
             f"(step_size={chain_params.step_size}, interp={interp}); this "
             "geometry's mid-bit target can be produced before its emission "
-            "is consumed — use the XLA path (use_pallas=False)")
+            "is consumed -- use the XLA path (use_pallas=False)")
     ring_t = ring_t_size(chain_params.step_size,
                          chain_params.gardner_err_limit, interp)
-    n_tg = -(-ring_t // interp)   # time-ring group planes (one per interp)
-    n_state = (6 + hist_len + 1 + ring_t + 1 + n_tg + 2 + 5
-               + (2 if tgen else 0))
+    n_tg = -(-ring_t // interp)   # time-ring group entries (one per interp)
+    n_state = 6 + hist_len + 1 + ring_t + 1 + n_tg + 2 + 5
 
     agc_params = (chain_params.agc_attack, chain_params.agc_decay,
                   1.0, 5000.0, 10e-5, chain_params.squelch_threshold or 0.0)
 
-    def to_tiles(a):
-        return jnp.moveaxis(a.reshape(S, LANES, L), -1, 0)
+    Bp = pad_lanes(B)
+
+    def time_major(a):
+        # (B, L) -> (L, Bp): rows of lanes, silent (zero) pad lanes
+        return jnp.pad(a.T, ((0, 0), (0, Bp - B)))
 
     planes = [
         jnp.stack([pll_state.phase, pll_state.freq, pll_state.locksig,
                    pll_state.avg_phase, pll_state.sweep,
                    pll_state.locked.astype(dt)]),
-        jnp.zeros((hist_len + 1 + ring_t + 1 + n_tg + 2 + 5, B), dt)
-        .at[hist_len].set(agc_gain.astype(dt)),
+        jnp.zeros((n_state - 6, B), dt).at[hist_len].set(agc_gain.astype(dt)),
     ]
-    if tgen:
-        planes.append(jnp.stack([t_seed.astype(dt), t_pad0.astype(dt)]))
-    st_in = jnp.concatenate(planes).reshape(n_state, S, LANES)
+    st_in = jnp.pad(jnp.concatenate(planes), ((0, 0), (0, Bp - B)))
 
-    grid = (L // window,)
-    spec_w = pl.BlockSpec((window, S, LANES), lambda w: (w, 0, 0))
-    spec_s = pl.BlockSpec((n_state, S, LANES), lambda w: (0, 0, 0))
-    operands = [to_tiles(zre), to_tiles(zim)]
-    in_specs = [spec_w, spec_w]
-    if not tgen:
-        operands.append(to_tiles(t_next))
-        in_specs.append(spec_w)
-    operands.append(st_in)
-    in_specs.append(spec_s)
-    be, btimes, st_out = pl.pallas_call(
+    spec_t = pl.BlockSpec((L, LANE_TILE), lambda j: (0, j))
+    spec_s = pl.BlockSpec((n_state, LANE_TILE), lambda j: (0, j))
+    be, bpos, st_out = pl.pallas_call(
         functools.partial(_kernel, chain_params, agc_params, poly, interp,
-                          window, chain_params.squelch_position, ring_t,
-                          n_tg, unroll, float(ts) if tgen else None,
+                          L, ring_t, n_tg,
                           1.0 / 32768.0 if in_i16 else None),
-        grid=grid,
-        in_specs=in_specs,
-        out_specs=[spec_w, spec_w, spec_s],
+        grid=(Bp // LANE_TILE,),
+        in_specs=[spec_t, spec_t, spec_s],
+        out_specs=[spec_t, spec_t, spec_s],
         out_shape=[
-            jax.ShapeDtypeStruct((L, S, LANES), dt),
-            jax.ShapeDtypeStruct((L, S, LANES), dt),
-            jax.ShapeDtypeStruct((n_state, S, LANES), dt),
+            jax.ShapeDtypeStruct((L, Bp), dt),
+            jax.ShapeDtypeStruct((L, Bp), dt),
+            jax.ShapeDtypeStruct((n_state, Bp), dt),
         ],
-        scratch_shapes=[pltpu.VMEM((n_state, S, LANES), dt)],
+        backend="triton",
+        compiler_params=plgpu_triton.CompilerParams(
+            num_warps=LANE_TILE // 32, num_stages=1),
         interpret=interpret,
-    )(*operands)
+        name="fused_demod",
+    )(time_major(zre), time_major(zim), st_in)
 
-    def from_tiles(a):
-        return jnp.moveaxis(a, 0, -1).reshape(B, L)
-
-    so = st_out.reshape(n_state, B)
-    avg_phase = so[3]
-    be = from_tiles(be)
+    avg_phase = st_out[3, :B]
+    be = be[:, :B].T
     emit = be > 1.5               # merged plane: 2 + bit on emission
     bits = be - 2.0 * emit.astype(dt)
-    return (bits, from_tiles(btimes), emit, avg_phase)
+    return (bits, bpos[:, :B].T, emit, avg_phase)

@@ -10,7 +10,7 @@ The C static locals become an explicit `PLLState` pytree; the per-sample loop
 becomes `jax.lax.scan`, so the same step function serves
   - the exact chunked streaming mode (scan over one chunk, carry the state),
   - the block-parallel fast mode (vmap over blocks: each scan step advances
-    hundreds of independent block-lanes on the VPU).
+    hundreds of independent block-lanes).
 
 All loop gains are per-sample (pre-scaled by 2*pi/Fs by the caller, matching
 the reference call sites, e.g. ``POESTIPdemod/main.c:413``).
@@ -103,10 +103,12 @@ def _step(params: PLLParams, state: PLLState, zre, zim):
 
     # wrapped phase error against the NCO
     sample_phase = arctan2_approx(zim, zre)
-    pi = c(np.pi)
+    # negated constants are folded here, not negated in the graph: the
+    # Triton route cannot lower a negation of a constant
+    pi, neg_pi = c(np.pi), c(-np.pi)
     err = sample_phase - state.phase
     err = jnp.where(err > pi, err - two_pi,
-                    jnp.where(err < -pi, err + two_pi, err))
+                    jnp.where(err < neg_pi, err + two_pi, err))
 
     alpha = jnp.where(state.locked, c(params.alpha_track), c(params.alpha_acq))
     beta = jnp.where(state.locked, c(params.beta_track), c(params.beta_acq))
@@ -114,7 +116,7 @@ def _step(params: PLLParams, state: PLLState, zre, zim):
     freq = state.freq + beta * err
     phase = state.phase + freq + alpha * err
     phase = jnp.where(phase > two_pi, phase - two_pi, phase)
-    phase = jnp.where(phase < -two_pi, phase + two_pi, phase)
+    phase = jnp.where(phase < c(-2.0 * np.pi), phase + two_pi, phase)
     freq = jnp.clip(freq, c(-params.max_freq), c(params.max_freq))
 
     # lock detector over the Q_rsqrt-normalized carrier projection
@@ -149,9 +151,8 @@ def pll_scan(params: PLLParams, state: PLLState, z, unroll: int = 8,
     LAST axis (leading axes are batch lanes).  Returns (state, out, locksig).
 
     `window > 0` nests the scan (outer over length-`window` chunks, inner over
-    samples): each chunk is a loop-local VMEM buffer, so the per-step stream
-    reads never touch HBM — identical math, large-block TPU speed.  Requires
-    n % window == 0.
+    samples) — identical math, a loop-local chunk buffer per outer step.
+    Requires n % window == 0.
     """
     if isinstance(z, tuple):
         zre, zim = z

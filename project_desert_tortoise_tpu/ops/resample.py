@@ -7,10 +7,10 @@ instead of the C apps' zero-stuff FIR interpolation, the sample VALUES are
 interpolated with a smooth kernel and clock recovery runs on the denser
 stream.
 
-TPU-first formulation: the interpolant is polyphase — every output phase
+Vectorized formulation: the interpolant is polyphase — every output phase
 ``p/L`` is a fixed small-tap convolution of the input, so the whole
-upsample is L shifted multiply-adds on full vectors (VPU-friendly, static
-shapes), not a per-point evaluation loop.
+upsample is L shifted multiply-adds on full vectors (static shapes), not a
+per-point evaluation loop.
 
 Kernels:
 - ``linear``: 2-tap, exact twin of ``interp1 .. 'linear'``.

@@ -1,13 +1,13 @@
 """Multi-host orchestration (the N-host scaling configuration).
 
 The demod workload has no cross-host model state — hosts cooperate only
-through the ``blk`` halo ring (ICI in-slice, DCN across slices) — so
-multi-host setup is just `jax.distributed.initialize` plus a global mesh.
+through the ``blk`` halo exchange — so multi-host setup is just
+`jax.distributed.initialize` plus a global mesh.
 
-Typical driver on every host of a pod slice:
+Typical launch on every host:
 
     from project_desert_tortoise_tpu.parallel import multihost as MH
-    MH.init()                       # env-driven (TPU pods autoconfigure)
+    MH.init("host0:1234", 2, rank)  # coordinator, process count, id
     mesh = MH.global_mesh(n_channel=2)
     # feed each host its local shard of the recording(s):
     local = MH.local_time_slice(n_total_samples, mesh)
@@ -30,8 +30,9 @@ from jax.sharding import Mesh
 def init(coordinator_address: Optional[str] = None,
          num_processes: Optional[int] = None,
          process_id: Optional[int] = None):
-    """`jax.distributed.initialize` wrapper: on TPU pods all arguments are
-    discovered from the environment; pass them explicitly elsewhere."""
+    """`jax.distributed.initialize` wrapper.  Pass all three arguments on
+    GPU hosts; with none, JAX discovers them from a cluster environment
+    that provides them."""
     kwargs = {}
     if coordinator_address is not None:
         kwargs = dict(coordinator_address=coordinator_address,
@@ -74,7 +75,7 @@ def local_time_slice(n_samples: int, mesh: Mesh) -> Tuple[int, int]:
 
 
 def demodulate_multihost(iq, t, fs, mode_cfg, mesh: Mesh,
-                         norm_factor=None, plan=None, use_pallas=False):
+                         norm_factor=None, plan=None, use_pallas=None):
     """Multi-process twin of `sharding.demodulate_sharded`.
 
     Every process calls this with the same (C, N) recording view (a file
@@ -84,54 +85,48 @@ def demodulate_multihost(iq, t, fs, mode_cfg, mesh: Mesh,
     lists, identical on every process (frames are all-gathered).
     """
     from jax.sharding import NamedSharding, PartitionSpec as P
-    from project_desert_tortoise_tpu.ops.framer import Frame
+    from project_desert_tortoise_tpu.parallel import blocked as BL
     from project_desert_tortoise_tpu.parallel import sharding as SH
 
     C = iq.shape[0]
-    params, plan, re, im, tn, bounds, norm = SH.stage_global(
+    params, plan, re, im, bounds, lo_b, t_ext, norm = SH.stage_global(
         iq, t, fs, mode_cfg, mesh, plan, norm_factor)
     Np = re.shape[1]
     lo, hi = local_time_slice(Np, mesh)
     n_blk = mesh.shape["blk"]
-    nb_total = bounds.shape[1]
-    b_per = nb_total // n_blk
+    b_loc = Np // n_blk // plan.core
     col_lo = lo // (Np // n_blk)
     col_hi = hi // (Np // n_blk)
 
     sh = NamedSharding(mesh, P("ch", "blk"))
-    sh_b = NamedSharding(mesh, P("ch", "blk", None))
-    sh_r = NamedSharding(mesh, P(None, None))
     mk = jax.make_array_from_process_local_data
     g_re = mk(sh, np.ascontiguousarray(re[:, lo:hi]), re.shape)
     g_im = mk(sh, np.ascontiguousarray(im[:, lo:hi]), im.shape)
-    g_tn = mk(sh, np.ascontiguousarray(tn[:, lo:hi]), tn.shape)
-    g_bd = mk(sh_b,
-              np.ascontiguousarray(bounds[:, col_lo * b_per:col_hi * b_per]),
+    g_bd = mk(NamedSharding(mesh, P("blk", None)),
+              np.ascontiguousarray(bounds[col_lo * b_loc:col_hi * b_loc]),
               bounds.shape)
-    g_nm = mk(sh_r, norm, norm.shape)
+    g_nm = mk(NamedSharding(mesh, P(None, None)), norm, norm.shape)
 
     step = SH.sharded_demod_step(params, plan, mode_cfg.framer, mesh,
                                  float(fs), use_pallas)
-    times, inv, data, n = step(g_re, g_im, g_tn, g_bd, g_nm)
+    out = step(g_re, g_im, g_bd, g_nm)
 
-    # collect this process's shards, keyed by device so the four outputs line up
-    def by_dev(arr):
-        return {s.device: np.asarray(s.data) for s in arr.addressable_shards}
-    d_t, d_i, d_d, d_n = by_dev(times), by_dev(inv), by_dev(data), by_dev(n)
-
-    tagged = []            # (channel, Frame) pairs from local shards
-    for dev, tt in d_t.items():
-        ii, dd, nn = d_i[dev], d_d[dev], d_n[dev]
-        for c in range(tt.shape[0]):
-            for j in range(int(nn[c, 0])):
-                tagged.append((c, Frame(float(tt[c, j]), bool(ii[c, j]),
-                                        dd[c, j].copy(), True)))
-    all_tagged = gather_frames(tagged)
+    # this process's shards, keyed by device so the outputs line up; a
+    # shard's index into the global n (C, n_blk) gives its first channel
+    # and its blk column
+    by_dev = [{p.device: p for p in x.addressable_shards} for x in out]
+    tagged = []            # (column, channel, Frame) from local shards
+    for dev, n_part in by_dev[3].items():
+        c0 = n_part.index[0].start or 0
+        col = n_part.index[1].start or 0
+        local = [np.asarray(d[dev].data) for d in by_dev]
+        tagged += [(col, c0 + c, f) for c, f in SH.shard_frames(
+            local, col, t_ext, lo_b, BL.time_shift(params), b_loc)]
+    # stream order: by column, each shard's frames already in order
+    all_tagged = sorted(gather_frames(tagged), key=lambda x: x[0])
     results = [[] for _ in range(C)]
-    for c, f in all_tagged:
+    for _, c, f in all_tagged:
         results[c].append(f)
-    for frames in results:
-        frames.sort(key=lambda f: f.time)
     return results
 
 

@@ -1,13 +1,14 @@
-"""Batched multi-channel streaming serving — the TPU fast path for realtime.
+"""Batched multi-channel streaming serving — the fast path for realtime.
 
 The reference realtime apps are one process per channel, one sample at a
 time (``POESTIPdemodPortAudio/main.c:324-401``).  The serving configuration
-this framework targets is hundreds of satellite channels per chip: each
+this framework targets is hundreds of satellite channels per card: each
 channel's live stream accumulates in a host buffer, and whenever enough
 samples exist to cut finished time blocks (core + relock halos, see
 ``parallel/blocked.py``), blocks from ALL channels are batched into one
 device dispatch through the same demod path the offline fast mode uses
-(XLA scans or the fused Pallas kernel), with channel-aware frame stitching.
+(the fused Pallas kernel on a GPU, XLA scans on the CPU), with
+channel-aware frame stitching.
 
 Latency model: a block covering core interval [k*core, (k+1)*core) is cut
 once (k+1)*core + tail samples have arrived, so end-to-end latency is
@@ -60,7 +61,7 @@ class ChannelBank:
     def __init__(self, mode_cfg, fs: float, n_channels: int,
                  plan: Optional[BL.BlockPlan] = None,
                  batch_blocks: int = 128,
-                 window: int = 4096, use_pallas=False,
+                 window: int = 4096, use_pallas=None,
                  norm_factor: Optional[float] = None,
                  on_frame: Optional[Callable[[int, Frame], None]] = None,
                  dtype=np.float32, pad_batches: bool = True,
@@ -87,18 +88,8 @@ class ChannelBank:
         # count — a multi-second latency spike per new batch size otherwise
         self.pad_batches = pad_batches
         self.window = window
-        # fused path: regenerate the accumulated time axis in-kernel from
-        # per-block seeds instead of staging a (bn, total) f32 time plane —
-        # one third off the host staging bytes/copies (same bit-exact
-        # reconstruction as the flat E2E path, fused_kernel time-gen docs);
-        # requires the padded batches that already guarantee bn % 128 == 0
-        # AND a window that divides plan.total (demod_blocks silently falls
-        # back to window=0 — i.e. off the fused path — for unaligned plans,
-        # where t_next=None would then raise at pump time; keep the staged
-        # time plane for such plans instead)
-        self.tgen = (use_pallas == "fused" and pad_batches
-                     and batch_blocks % 128 == 0
-                     and window and self.plan.total % window == 0)
+        if use_pallas is None:
+            use_pallas = BL.default_use_pallas()
         self.use_pallas = use_pallas
         self.on_frame = on_frame
         self.norm = norm_factor
@@ -107,7 +98,7 @@ class ChannelBank:
         self.channels = [_Channel(self.dt, self._ts, self.sdt)
                          for _ in range(n_channels)]
         self.frames: List[List[Frame]] = [[] for _ in range(n_channels)]
-        self._shift = self.params.interp > 1
+        self._shift = BL.time_shift(self.params)
         self._pending = None   # in-flight stitched batch (double buffering)
 
     # ---------------- producers ----------------
@@ -180,25 +171,23 @@ class ChannelBank:
         return out
 
     def _stage(self, items):
-        """items: list of (ch, block). Returns staged device batch arrays,
-        padded to batch_blocks rows (silent blocks, inf bounds) so the
-        dispatch shape is constant."""
+        """items: list of (ch, block). Returns staged host batch arrays,
+        padded to batch_blocks rows (silent blocks, empty bounds) so the
+        dispatch shape is constant, the block-local core bounds, and per
+        row its channel, that channel's time axis, and the index in it of
+        the row's first sample (BL.frame_times)."""
         bn = self.batch_blocks if (self.pad_batches
                                    and len(items) < self.batch_blocks) \
             else len(items)
         P = self.plan
         brs = np.zeros((bn, P.total), self.sdt)
         bis = np.zeros((bn, P.total), self.sdt)
-        # time-generation mode replaces the (bn, total) time plane with
-        # per-block (seed, pad0) pairs; silent pad rows keep seed 0/pad 0
-        tns = None if self.tgen else np.zeros((bn, P.total), self.dt)
-        seeds = np.zeros(bn, self.dt) if self.tgen else None
-        pad0 = np.zeros(bn, self.dt) if self.tgen else None
-        bounds = np.full((bn, 2), np.inf)
-        chan = np.zeros(bn, np.int32)
+        bounds = np.zeros((bn, 2))
+        chans, axes, los = [], [], []
         for k, (ci, b) in enumerate(items):
             c = self.channels[ci]
-            lo = b * P.core - P.head - c.base       # buffer-relative
+            lo_abs, bnd = BL.local_bounds(P, c.count, [b], self._shift)
+            lo = int(lo_abs[0]) - c.base            # buffer-relative
             hi = lo + P.total
             avail = len(c.re)
             src_lo, src_hi = max(lo, 0), min(hi, avail)
@@ -206,21 +195,13 @@ class ChannelBank:
             m = src_hi - src_lo
             brs[k, d0:d0 + m] = c.re[src_lo:src_hi]
             bis[k, d0:d0 + m] = c.im[src_lo:src_hi]
-            off = 1 if self._shift else 0
-            # t_ext[i (+1)] = time of sample base+i (+1); one extra entry
-            # always exists
-            if self.tgen:
-                seeds[k] = c.t_ext[src_lo + off]
-                pad0[k] = d0
-            else:
-                tns[k, d0:d0 + m] = c.t_ext[src_lo + off:src_hi + off]
-            cs = b * P.core - c.base
-            ce = min(cs + P.core, c.count - c.base)
-            bounds[k, 0] = c.t_ext[cs]
-            bounds[k, 1] = c.t_ext[ce] if ce < len(c.t_ext) else \
-                c.t_ext[-1] + self._ts
-            chan[k] = ci
-        return brs, bis, (tns, seeds, pad0), bounds, chan
+            bounds[k] = bnd[0]
+            # t_ext[i] = time of sample base+i, held by reference: _trim
+            # replaces, never mutates, it
+            chans.append(ci)
+            axes.append(c.t_ext)
+            los.append(lo)
+        return brs, bis, bounds, (chans, axes, los)
 
     def pump(self) -> int:
         """Stage + demodulate every ready block (in batch_blocks batches).
@@ -276,30 +257,22 @@ class ChannelBank:
             self._pending = None
         return len(work)
 
-    def _dispatch(self, brs, bis, tplanes, bounds, chan):
+    def _dispatch(self, brs, bis, bounds, rows):
         """Stage to device + launch demod; returns un-fetched outputs."""
-        tns, seeds, pad0 = tplanes
-        bn = len(chan)
+        total = brs.shape[1]
         jre, jim = jnp.asarray(brs), jnp.asarray(bis)
         fest = BL.coarse_carrier_est(jre, jim, self.fs,
                                      self.cfg.gardner.baud / 2.0)
-        bits_c, times_c, n_bits, _ = BL.demod_blocks(
-            self.params, self.plan.total, jre, jim, self.fs,
-            None if self.tgen else jnp.asarray(tns), fest, float(self.norm),
-            self.window, self.use_pallas, 0,
-            jnp.asarray(seeds) if self.tgen else None,
-            jnp.asarray(pad0) if self.tgen else None)
-        return BL.extract_stitch_chan(
-            self.cfg.framer, self.plan.max_frames,
-            bn * self.plan.max_frames, bits_c, times_c, n_bits,
-            jnp.asarray(bounds, self.dt), jnp.asarray(chan))
+        stitched = BL.demod_frames(
+            self.params, total, self.cfg.framer, self.plan.max_frames,
+            self.fs, self.window, self.use_pallas, jre, jim, fest,
+            float(self.norm), jnp.asarray(bounds, self.dt))
+        return stitched, rows
 
-    def _collect(self, stitched):
-        f_times, f_inv, f_data, n, f_chan = (np.asarray(x) for x in stitched)
-        for j in range(int(n)):
-            ci = int(f_chan[j])
-            fr = Frame(float(f_times[j]), bool(f_inv[j]),
-                       f_data[j].copy(), True)
+    def _collect(self, dispatched):
+        stitched, (chans, axes, los) = dispatched
+        for r, fr in BL.frame_times(stitched, axes, los, self._shift):
+            ci = chans[r]
             self.frames[ci].append(fr)
             if self.on_frame:
                 self.on_frame(ci, fr)

@@ -1,16 +1,17 @@
-"""Device-mesh sharding for multi-chip / multi-host demodulation.
+"""Device-mesh sharding for multi-card / multi-host demodulation.
 
 Axes (SURVEY.md section 2.4):
 - ``ch``  — channel parallelism: independent recordings/satellites
             (embarrassingly parallel, the reference's "4 separate apps" axis);
 - ``blk`` — sequence parallelism over time blocks: the recording is sharded
             contiguously along time; each shard exchanges halo samples with
-            its ring neighbors via ``lax.ppermute`` over ICI, then runs the
-            same block-parallel demod locally (warm-up head from the left
+            its neighbors in time via ``lax.ppermute``, then runs the same
+            block-parallel demod locally (warm-up head from the left
             neighbor, frame-completion tail from the right neighbor).
 
-Multi-host: the same code runs under ``jax.distributed.initialize`` with a
-global mesh; ppermute rides ICI within a slice and DCN across hosts.
+The mesh follows the algorithm: on cards joined all to all (NVLink) the
+halo exchange costs the same between any two devices.  Multi-host: the same
+code runs under ``jax.distributed.initialize`` with a global mesh.
 """
 
 from __future__ import annotations
@@ -38,8 +39,8 @@ def make_mesh(n_channel: int, n_block: int, devices=None) -> Mesh:
 
 
 def _halo_exchange(x, head: int, tail: int, axis_name: str):
-    """Build [left-halo | local | right-halo] along the last axis using ring
-    ppermute.  Edge shards receive zeros (stream boundary)."""
+    """Build [left-halo | local | right-halo] along the last axis with a
+    neighbor ppermute.  Edge shards receive zeros (stream boundary)."""
     n_shards = jax.lax.axis_size(axis_name)
     idx = jax.lax.axis_index(axis_name)
     # my tail -> right neighbor's head halo
@@ -54,49 +55,38 @@ def _halo_exchange(x, head: int, tail: int, axis_name: str):
 
 
 def sharded_demod_step(params: chain_lib.ChainParams, plan, framer_cfg,
-                       mesh: Mesh, fs: float, use_pallas=False,
-                       cap: int = 0, window: int = 0):
-    """Returns a jitted function: (re, im, t_next, bounds, norm) sharded over
-    (ch, blk) -> stitched per-shard frames (times, inverted, data, n).
+                       mesh: Mesh, fs: float, use_pallas=None,
+                       cap: int = 0, window: int = 4096):
+    """Returns a jitted function: (re, im, bounds, norm) sharded over
+    (ch, blk) -> stitched per-shard frames (positions, inverted, data, n,
+    rows).
 
-    re/im/t_next: (C, N) global arrays, sharded P('ch', 'blk'); each shard's
-    local slice length must be a multiple of plan.core.  bounds: (C, NB, 2)
-    per-block core time intervals (NB = global block count), sharded along
-    NB.  Core-interval filtering, cross-shard dedup, and time-sorting happen
-    device-side (VERDICT r1 item 6); each shard returns a packed
-    (cap,)-capacity frame buffer plus its valid count, so the host fetches
-    O(frames) bytes instead of the full per-block candidate grid.
+    re/im: (C, N) global arrays, sharded P('ch', 'blk'); each shard's local
+    slice length must be a multiple of plan.core.  bounds: (NB, 2) per-block
+    core intervals in block-local positions (blocked.local_bounds; NB = the
+    global block count), sharded along NB.  Core-interval filtering and
+    stream ordering happen device-side: each shard returns, per channel, a
+    packed (cap,)-capacity frame buffer keyed by the shard's block row,
+    plus its valid count, so the host fetches O(frames) bytes instead of
+    the full per-block candidate grid.
 
-    window follows the demod path when left 0 (VERDICT r3 weak #2: the
-    fused kernel wants its VMEM-tuned 256, the XLA scans 4096); the fused
-    Pallas kernel additionally needs the block-lane count padded to a
-    multiple of 128 (one full vreg lane dimension), which local_demod does
-    per shard with zero blocks whose outputs are sliced away before framing.
+    use_pallas as in blocked.demod_blocks; None = the fused kernel on a GPU
+    mesh, the XLA scans on a CPU mesh.  window is the XLA scans' chunk.
     """
-    if not window:
-        window = 256 if use_pallas == "fused" else 4096
-    # Pallas interpret mode follows the MESH's devices, not the process
-    # default backend (which may be a TPU plugin even when this mesh is a
-    # CPU virtual mesh — VERDICT r4 weak #5)
+    # the kernel interprets only on a CPU mesh: placement follows the
+    # mesh's devices, not the process default
     interpret = mesh.devices.flat[0].platform == "cpu"
-    try:
-        from jax import shard_map as _sm  # jax >= 0.8 (check_vma kwarg)
-        shard_map = functools.partial(_sm, check_vma=False)
-    except ImportError:
-        from jax.experimental.shard_map import shard_map as _sme
-        shard_map = functools.partial(_sme, check_rep=False)
-    from project_desert_tortoise_tpu.ops import framer as framer_ops
+    shard_map = functools.partial(jax.shard_map, check_vma=False)
 
     head, tail, core = plan.head, plan.tail, plan.core
     # step_size = Fs*interp/baud  =>  bit rate = baud/2
     bit_rate = fs * params.interp / params.step_size / 2.0
     total = plan.total
 
-    def local_demod(re, im, tn, bounds, norm):
-        # re/im/tn: (C_loc, N_loc) local contiguous slices
+    def local_demod(re, im, bounds, norm):
+        # re/im: (C_loc, N_loc) local contiguous slices
         re_h = _halo_exchange(re, head, tail, "blk")
         im_h = _halo_exchange(im, head, tail, "blk")
-        tn_h = _halo_exchange(tn, head, tail, "blk")
 
         c_loc, n_loc = re.shape
         b_loc = n_loc // core
@@ -107,37 +97,25 @@ def sharded_demod_step(params: chain_lib.ChainParams, plan, framer_cfg,
                       for j in range(b_loc)]
             return jnp.stack(blocks, axis=1).reshape(c_loc * b_loc, total)
 
-        bre, bim, btn = cut(re_h), cut(im_h), cut(tn_h)
+        bre, bim = cut(re_h), cut(im_h)
         fest = blocked_lib.coarse_carrier_est(bre, bim, fs, bit_rate)
-        b_real = c_loc * b_loc
-        if use_pallas == "fused" and b_real % 128 != 0:
-            pad = -(-b_real // 128) * 128 - b_real
-            z = lambda a: jnp.concatenate(
-                [a, jnp.zeros((pad,) + a.shape[1:], a.dtype)])
-            bre, bim, btn, fest = z(bre), z(bim), z(btn), z(fest)
-        bits_c, times_c, n_bits, avgp = blocked_lib.demod_blocks(
-            params, total, bre, bim, fs, btn, fest, norm[0, 0],
-            window, use_pallas, 0, None, None, interpret)
-        if bits_c.shape[0] != b_real:
-            bits_c = bits_c[:b_real]
-            times_c = times_c[:b_real]
-            n_bits = n_bits[:b_real]
-        fb = blocked_lib.extract_frames(framer_cfg, plan.max_frames,
-                                        bits_c, times_c, n_bits)
-        # stitch per channel on device; (C_loc, B_loc, ...) frame grids
-        fb_c = jax.tree.map(
-            lambda a: a.reshape((c_loc, b_loc) + a.shape[1:]), fb)
-        times, inv, data, n = jax.vmap(
-            lambda f, b: framer_ops.stitch_frames(f, b, local_cap)
-        )(fb_c, bounds)
-        return times, inv, data, n[:, None]
+        bits_c, times_c, n_bits, _ = blocked_lib.demod_blocks(
+            params, total, bre, bim, fs, fest, norm[0, 0], window,
+            use_pallas, interpret)
+        # stitch per channel on device over (C_loc, B_loc, ...) grids
+        per_ch = lambda a: a.reshape((c_loc, b_loc) + a.shape[1:])
+        pos, inv, data, n, rows = jax.vmap(
+            lambda b, t, nb: blocked_lib.extract_stitch(
+                framer_cfg, plan.max_frames, local_cap, b, t, nb, bounds)
+        )(per_ch(bits_c), per_ch(times_c), per_ch(n_bits))
+        return pos, inv, data, n[:, None], rows
 
     fn = shard_map(
         local_demod, mesh=mesh,
-        in_specs=(P("ch", "blk"), P("ch", "blk"), P("ch", "blk"),
-                  P("ch", "blk", None), P(None, None)),
+        in_specs=(P("ch", "blk"), P("ch", "blk"), P("blk", None),
+                  P(None, None)),
         out_specs=(P("ch", "blk"), P("ch", "blk"), P("ch", "blk", None),
-                   P("ch", "blk")),
+                   P("ch", "blk"), P("ch", "blk")),
     )
     return jax.jit(fn)
 
@@ -145,10 +123,12 @@ def sharded_demod_step(params: chain_lib.ChainParams, plan, framer_cfg,
 def stage_global(iq, t, fs, mode_cfg, mesh: Mesh, plan=None,
                  norm_factor: Optional[float] = None):
     """Host staging shared by the single- and multi-process sharded paths:
-    pad (C, N) recordings to a core-aligned global length, build the
-    next-sample time axis, per-block core bounds, and the norm factor.
+    pad (C, N) recordings to a core-aligned global length, and build the
+    per-block core bounds and first-sample indices (blocked.local_bounds),
+    the accumulated time axis that times the frames, and the norm factor.
 
-    Returns (params, plan, re, im, tn, bounds, norm) as numpy arrays.
+    Returns (params, plan, re, im, bounds, lo, t_ext, norm) as numpy
+    arrays.
     """
     from project_desert_tortoise_tpu.ops import agc as agc_ops
 
@@ -168,65 +148,60 @@ def stage_global(iq, t, fs, mode_cfg, mesh: Mesh, plan=None,
     im[:, :N] = np.imag(iq)
     ts = dt.type(1.0) / dt.type(fs)
     t_ext = np.concatenate([np.asarray(t, dt), [dt.type(t[-1] + ts)]])
-    tn = np.zeros((C, Np), dt)
-    if params.interp > 1:
-        tn[:, :N] = t_ext[1:N + 1]
-    else:
-        tn[:, :N] = t_ext[:N]
     if norm_factor is None:
         norm_factor = agc_ops.static_gain(
             iq[0, :min(N, mode_cfg.chunk_size)], mode_cfg.static_gain_level, dt)
     norm = np.full((1, 1), norm_factor, dt)
+    # blocks past N get empty core intervals
+    lo, bounds = blocked_lib.local_bounds(plan, N, range(Np // plan.core),
+                                          blocked_lib.time_shift(params))
+    return (params, plan, re, im, bounds.astype(np.float32), lo, t_ext,
+            norm)
 
-    # per-block core time intervals, device-side stitching input
-    nb_total = Np // plan.core
-    bounds = np.full((C, nb_total, 2), np.inf, dt)
-    for b in range(nb_total):
-        lo_i = b * plan.core
-        hi_i = min((b + 1) * plan.core, N)
-        if lo_i >= N:
-            continue
-        bounds[:, b, 0] = t_ext[lo_i]
-        bounds[:, b, 1] = t_ext[hi_i] if hi_i < N else np.inf
-    return params, plan, re, im, tn, bounds, norm
+
+def shard_frames(stitched, col: int, t_ext, lo, shift: int, b_loc: int):
+    """(channel, Frame) pairs, in stream order per channel, of one shard's
+    fetched (positions, inverted, data, n, rows) outputs, each with a
+    leading channel axis.  Shard column ``col`` of the blk axis holds the
+    global blocks [col*b_loc, (col+1)*b_loc), whose first-sample indices
+    into ``t_ext`` are in ``lo`` (stage_global)."""
+    pos, inv, data, n, rows = stitched
+    lo_s = lo[col * b_loc:(col + 1) * b_loc]
+    axes = [t_ext] * b_loc
+    out = []
+    for c in range(pos.shape[0]):
+        out += [(c, f) for _, f in blocked_lib.frame_times(
+            (pos[c], inv[c], data[c], n[c, 0], rows[c]), axes, lo_s, shift)]
+    return out
 
 
 def demodulate_sharded(iq, t, fs, mode_cfg, mesh: Mesh,
                        norm_factor: Optional[float] = None,
-                       plan=None, use_pallas=False):
+                       plan=None, use_pallas=None):
     """Multi-channel, multi-shard demodulation of (C, N) recordings.
 
     iq: (C, N) complex, t: (N,) time axis (shared across channels).
-    Returns a list of per-channel frame lists.
+    Returns a list of per-channel frame lists in stream order.
     """
-    from project_desert_tortoise_tpu.ops.framer import Frame
-
     C = iq.shape[0]
-    params, plan, re, im, tn, bounds, norm = stage_global(
+    params, plan, re, im, bounds, lo, t_ext, norm = stage_global(
         iq, t, fs, mode_cfg, mesh, plan, norm_factor)
 
     sh = NamedSharding(mesh, P("ch", "blk"))
     step = sharded_demod_step(params, plan, mode_cfg.framer, mesh, float(fs),
                               use_pallas)
-    times, inv, data, n = step(
-        jax.device_put(re, sh), jax.device_put(im, sh),
-        jax.device_put(tn, sh),
-        jax.device_put(bounds, NamedSharding(mesh, P("ch", "blk", None))),
-        jax.device_put(norm, NamedSharding(mesh, P(None, None))))
+    out = step(jax.device_put(re, sh), jax.device_put(im, sh),
+               jax.device_put(bounds, NamedSharding(mesh, P("blk", None))),
+               jax.device_put(norm, NamedSharding(mesh, P(None, None))))
 
     # one fetch per array; shards are concatenated along the cap axis,
-    # each shard segment already time-sorted and core-filtered on device
-    n_blk_sh = mesh.shape["blk"]
-    f_times = np.asarray(times).reshape(C, n_blk_sh, -1)
-    f_inv = np.asarray(inv).reshape(C, n_blk_sh, -1)
-    f_data = np.asarray(data).reshape(C, n_blk_sh, f_times.shape[2], -1)
-    counts = np.asarray(n).reshape(C, n_blk_sh)
-
-    results = []
-    for c in range(C):
-        frames = [Frame(float(f_times[c, s, j]), bool(f_inv[c, s, j]),
-                        f_data[c, s, j].copy(), True)
-                  for s in range(n_blk_sh) for j in range(int(counts[c, s]))]
-        frames.sort(key=lambda f: f.time)
-        results.append(frames)
+    # each shard segment already core-filtered and in stream order
+    n_blk = mesh.shape["blk"]
+    b_loc = re.shape[1] // n_blk // plan.core
+    cols = [np.split(np.asarray(x), n_blk, axis=1) for x in out]
+    results = [[] for _ in range(C)]
+    for col in range(n_blk):
+        for c, f in shard_frames([x[col] for x in cols], col, t_ext, lo,
+                                 blocked_lib.time_shift(params), b_loc):
+            results[c].append(f)
     return results

@@ -5,7 +5,7 @@ main.c:246-282``): default input device, 48 kHz float32 stereo (I on the
 left channel, Q on the right), blocking reads of one chunk, input overflow
 tolerated with a counter instead of an abort (``main.c:327-331``).
 
-TPU-native framing: the capture thread is a *producer* for the same
+Framing: the capture thread is a *producer* for the same
 lock-free SPSC ring every other realtime source feeds
 (``native/wavio.cpp``); the streaming demodulator consumes device-agnostic
 chunks, so the soundcard path shares 100% of the DSP/serving code with

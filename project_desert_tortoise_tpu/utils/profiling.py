@@ -2,9 +2,8 @@
 
 - `trace(dir)`: context manager around jax.profiler for TensorBoard traces of
   the demod pipeline;
-- `StageTimer`: honest dispatch-to-fetch wall timing per stage with samples/s
-  accounting (`block_until_ready` is unreliable through some PJRT transports —
-  always force a small host fetch).
+- `StageTimer`: dispatch-to-fetch wall timing per stage with samples/s
+  accounting (a small host fetch ends every timed stage).
 """
 
 from __future__ import annotations

@@ -34,7 +34,7 @@ def test_pack_width():
                               np.array([-300], np.int16)) == 10
 
 
-def test_flat_pipelined_packed_matches_unpacked(poes_clip):
+def test_flat_pipelined_packed_matches_unpacked(poes_synth):
     """The packed pipelined E2E path (the bench configuration) must be
     frame-identical to the int16 path over the same planes."""
     from project_desert_tortoise_tpu import chain as chain_lib
@@ -42,7 +42,7 @@ def test_flat_pipelined_packed_matches_unpacked(poes_clip):
         BlockPlan, demod_frames_flat_pipelined)
     from project_desert_tortoise_tpu.utils import wav as W
 
-    iq, t, fs = poes_clip
+    iq, t, fs = poes_synth
     plan = BlockPlan(core=8192, head=12288, tail=8192, max_frames=8)
     B = 32
     reps = -(-B * plan.core // len(iq))

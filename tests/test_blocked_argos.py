@@ -104,15 +104,8 @@ def _fast(wav, cfg, use_pallas):
     tdt = np.float64 if cfg is ARGOS else np.float32
     iq, t, fs, _ = W.load_iq_wav(wav, tdt)
     iq = iq.astype(np.complex64)
-    if use_pallas:
-        # the fused kernel needs B % 128 == 0: tile the recording so one
-        # batch fills the lane dimension
-        reps = -(-128 * PLAN.core // len(iq))
-        iq = np.tile(iq, reps)
-        t = W.time_axis(len(iq), fs, tdt)
     frames = demodulate_blocked(iq, t, fs, cfg, plan=PLAN,
                                 batch_blocks=128,
-                                window=512 if use_pallas else 4096,
                                 use_pallas="fused" if use_pallas else False)
     return frames, fs
 

@@ -69,3 +69,23 @@ def test_q_rsqrt_double_input_squeezes_through_float():
 def test_sign():
     x = jnp.asarray(np.array([-2.0, -0.0, 0.0, 3.0], np.float32))
     assert np.array_equal(np.asarray(FM.sign(x)), [-1, 0, 0, 1])
+
+
+def test_round_half_even_matches_jnp_round():
+    """The kernel's rounding (floor/compare/select only) equals jnp.round
+    bit for bit: ties both ways, negatives, signed zeros, values past
+    2^23 where every float32 is an integer, and non-finite values."""
+    rng = np.random.default_rng(0)
+    ties = np.arange(-20, 20, dtype=np.float32) + np.float32(0.5)
+    specials = np.array([0.0, -0.0, 0.49999997, -0.49999997, 0.5, -0.5,
+                         1.5, -1.5, 2.5, -2.5, 8388607.5, -8388607.5,
+                         8388608.0, 16777217.0, 3.4e38, -3.4e38,
+                         np.inf, -np.inf, np.nan], np.float32)
+    rand = (rng.standard_normal(20000) * 10.0 ** rng.integers(
+        -3, 9, 20000)).astype(np.float32)
+    grid = (rng.integers(-2 ** 20, 2 ** 20, 20000) / 16.0).astype(
+        np.float32)          # the Gardner pointer's 1/16 grid near 2^19
+    for x in (ties, specials, rand, grid):
+        got = np.asarray(FM.round_half_even(jnp.asarray(x)))
+        want = np.asarray(jnp.round(jnp.asarray(x)))
+        assert np.array_equal(got.view(np.int32), want.view(np.int32))

@@ -36,17 +36,17 @@ def test_sharded_matches_oracle(poes_clip, oracle_frames, cpu_devices):
 
 
 def test_sharded_fused_kernel(cpu_devices, monkeypatch):
-    """The fused Pallas kernel composes with the mesh (VERDICT r3 weak #2):
+    """The fused Pallas kernel composes with the mesh:
     demodulate_sharded(use_pallas='fused') runs the kernel inside shard_map
-    (interpret mode on CPU, per-shard lanes padded to 128) and decodes the
-    same payloads as the default XLA scan path."""
+    (interpret mode on a CPU mesh, lanes padded to whole tiles inside the
+    kernel wrapper) and decodes the same payloads as the XLA scan path."""
     from project_desert_tortoise_tpu.ops.pallas import fused_kernel as FK
 
     calls = []
     real = FK.fused_demod_pallas
 
     def spy(*a, **k):
-        calls.append(k.get("window"))
+        calls.append(1)
         return real(*a, **k)
 
     monkeypatch.setattr(FK, "fused_demod_pallas", spy)
@@ -64,7 +64,8 @@ def test_sharded_fused_kernel(cpu_devices, monkeypatch):
              if np.asarray(f.data, np.uint8).tobytes() in sent_set)
     assert ok >= len(sent) - 1
     # parity with the default sharded path over the same mesh
-    base = demodulate_sharded(iq[None, :], t, fs, POES_TIP, mesh, plan=plan)
+    base = demodulate_sharded(iq[None, :], t, fs, POES_TIP, mesh, plan=plan,
+                              use_pallas=False)
     assert {round(f.time, 6) for f in res[0]} \
         >= {round(f.time, 6) for f in base[0]}
 

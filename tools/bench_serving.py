@@ -1,7 +1,6 @@
 #!/usr/bin/env python3
 """Serving latency / capacity measurement for the ChannelBank
-(VERDICT r3 item 4: the "hundreds of live channels per chip" pitch needs an
-artifact).
+(the "hundreds of live channels per card" claim needs a measurement).
 
 Model under test: N live channels at ``fs`` samples/s feed a ChannelBank;
 one consumer loop pumps batched device dispatches (parallel/serving.py).
@@ -26,8 +25,7 @@ speedup-1 deployment would see from the same bank config, minus the
 shorter batching waits at higher load).
 
 Usage: python tools/bench_serving.py [--channels 8,32] [--duration 10]
-       [--speedup 4] [--json out.json] [--use-pallas fused]
-On TPU, run through the single-registration child pattern (tools/tpurun.py).
+       [--speedup 4] [--json out.json] [--use-pallas auto|0|fused]
 """
 
 from __future__ import annotations
@@ -49,7 +47,7 @@ sys.path.insert(0, REPO)
 def measure_serving(mode_cfg, fs: float, n_channels: int,
                     duration_s: float = 10.0, speedup: float = 1.0,
                     plan=None, batch_blocks: int = 128,
-                    window: int = 4096, use_pallas=False,
+                    window: int = 4096, use_pallas=None,
                     pump_period_s: float = 0.05, seed: int = 0,
                     stage_dtype=np.float32):
     """Run N throttled producers + one pump loop; return a metrics dict."""
@@ -168,7 +166,8 @@ def main():
     p.add_argument("--duration", type=float, default=10.0)
     p.add_argument("--speedup", type=float, default=1.0)
     p.add_argument("--fs", type=float, default=48000.0)
-    p.add_argument("--use-pallas", default="0")
+    p.add_argument("--use-pallas", default="auto",
+                   choices=["auto", "0", "fused"])
     p.add_argument("--batch-blocks", type=int, default=128)
     p.add_argument("--window", type=int, default=4096)
     p.add_argument("--core", type=int, default=0)
@@ -179,8 +178,7 @@ def main():
     from project_desert_tortoise_tpu.parallel import blocked as BL
     from project_desert_tortoise_tpu.utils.config import POES_TIP_REALTIME
 
-    up = {"0": False, "front": "front", "fused": "fused"}.get(
-        args.use_pallas, False)
+    up = {"auto": None, "0": False, "fused": "fused"}[args.use_pallas]
     plan = None
     if args.core:
         plan = BL.default_plan(POES_TIP_REALTIME, args.fs, core=args.core)

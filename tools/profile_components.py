@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
-"""Honest dispatch->fetch timing of each component of the fast demod path.
+"""Dispatch-to-ready timing of each component of the fast demod path on
+one device (host clock around work that ends in block_until_ready).
 
-    python tools/tpurun.py tools/profile_components.py [--b 128] [--window 512]
+    python tools/profile_components.py [--b 128] [--core 98304]
 """
 
 import argparse
@@ -15,14 +16,13 @@ sys.path.insert(0, REPO)
 import numpy as np  # noqa: E402
 
 
-def timeit(fn, fetch, iters=4):
-    out = fn()
-    _ = np.asarray(fetch(out))
+def timeit(fn, iters=4):
+    import jax
+    out = jax.block_until_ready(fn())
     ts = []
     for _ in range(iters):
         t0 = time.perf_counter()
-        out = fn()
-        _ = np.asarray(fetch(out))
+        out = jax.block_until_ready(fn())
         ts.append(time.perf_counter() - t0)
     return float(np.median(ts)), out
 
@@ -30,20 +30,18 @@ def timeit(fn, fetch, iters=4):
 def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("--b", type=int, default=128)
-    ap.add_argument("--window", type=int, default=512)
     ap.add_argument("--core", type=int, default=98304)
-    ap.add_argument("--impl", default="fused", choices=["fused"])
     args = ap.parse_args()
 
     import jax
     import jax.numpy as jnp
+    import bench
     from project_desert_tortoise_tpu import chain as chain_lib
     from project_desert_tortoise_tpu.parallel import blocked as BL
     from project_desert_tortoise_tpu.ops import manchester as man_ops
     from project_desert_tortoise_tpu.ops import pll as pll_ops
     from project_desert_tortoise_tpu.ops.pallas.fused_kernel import (
         fused_demod_pallas)
-    from project_desert_tortoise_tpu.utils import wav as W
     from project_desert_tortoise_tpu.utils.config import POES_TIP
 
     fs = 50000.0
@@ -51,24 +49,25 @@ def main():
     params = chain_lib.make_params(POES_TIP, fs, quirks=False)
     plan = BL.BlockPlan(core=args.core, head=12288, tail=8192, max_frames=64)
     B = args.b
+    use_pallas = BL.default_use_pallas()
+    interpret = not use_pallas
 
-    clip = "/root/reference/5sec_clip.wav"
-    iq, t, fs, _ = W.load_iq_wav(clip)
+    iq = bench.poes_input(fs)
     re = np.real(iq).astype(dt)
     im = np.imag(iq).astype(dt)
     reps = int(np.ceil((B * plan.core + plan.total) / len(re)))
     rr, ii = np.tile(re, reps), np.tile(im, reps)
-    tt = W.time_axis(len(rr) + 1, fs, dt)
-    brs, bis, tn, bounds = BL.stage_blocks(rr, ii, tt, plan, 0, B, dt)
+    brs, bis = BL.stage_blocks(rr, ii, plan, 0, B, dt)
     total = plan.total
     n_samp = B * plan.core
+    _, bounds = BL.local_bounds(plan, len(rr), range(B),
+                                BL.time_shift(params))
 
-    jre, jim, jtn = jnp.asarray(brs), jnp.asarray(bis), jnp.asarray(tn)
+    jre, jim = jnp.asarray(brs), jnp.asarray(bis)
     jb = jnp.asarray(bounds, dt)
 
     ms, fest = timeit(
-        lambda: BL.coarse_carrier_est(jre, jim, float(fs), 8320.0),
-        lambda o: o)
+        lambda: BL.coarse_carrier_est(jre, jim, float(fs), 8320.0))
     print(f"carrier_est    {ms*1e3:8.2f} ms")
 
     pll_state = pll_ops.init_state(params.pll, dt, (B,))
@@ -77,47 +76,42 @@ def main():
         locked=jnp.ones((B,), bool))
     gain0 = jnp.full((B,), 17.58, dt)
 
-    fd = jax.jit(lambda: fused_demod_pallas(
-        params, pll_state, gain0, (jre, jim), jtn, window=args.window))
-    ms, out_k = timeit(fd, lambda o: o[3])
-    print(f"fused_kernel   {ms*1e3:8.2f} ms   -> {n_samp/ms/1e6:8.1f} Msps")
-    bits_f, btimes_f, emit_f, avgp = out_k
-
-    max_bits = total // 4 + 8
-    comp = jax.jit(lambda: man_ops.compress_spaced(
-        bits_f.astype(jnp.uint8), btimes_f, emit_f, max_bits, min_spacing=4))
-    ms, out_c = timeit(comp, lambda o: o[2])
-    print(f"compress       {ms*1e3:8.2f} ms")
-    bits_c, times_c, n_bits = out_c
-
-    ms, stitched = timeit(
-        lambda: BL.extract_stitch(POES_TIP.framer, plan.max_frames,
-                                  B * plan.max_frames, bits_c, times_c,
-                                  n_bits, jb),
-        lambda o: o[3])
-    print(f"extract+stitch {ms*1e3:8.2f} ms   frames={int(np.asarray(stitched[3]))}")
+    if use_pallas:
+        ms, out_k = timeit(lambda: fused_demod_pallas(
+            params, pll_state, gain0, (jre, jim), interpret=interpret))
+        print(f"fused_kernel   {ms*1e3:8.2f} ms   -> "
+              f"{n_samp/ms/1e6:8.1f} Msps")
+        bits_f, btimes_f, emit_f, avgp = out_k
+        max_bits = total // 4 + 8
+        comp = jax.jit(lambda: man_ops.compress_spaced(
+            bits_f.astype(jnp.uint8), btimes_f, emit_f, max_bits,
+            min_spacing=4))
+        ms, out_c = timeit(comp)
+        print(f"compress       {ms*1e3:8.2f} ms")
+        bits_c, times_c, n_bits = out_c
+        ms, stitched = timeit(
+            lambda: BL.extract_stitch(POES_TIP.framer, plan.max_frames,
+                                      B * plan.max_frames, bits_c, times_c,
+                                      n_bits, jb))
+        print(f"extract+stitch {ms*1e3:8.2f} ms   "
+              f"frames={int(np.asarray(stitched[3]))}")
 
     # end-to-end via demod_blocks for cross-check
-    def e2e():
-        out = BL.demod_blocks(params, total, jre, jim, float(fs), jtn,
-                              fest, 17.58, args.window, args.impl)
-        return out
-    ms, _ = timeit(e2e, lambda o: o[2])
-    print(f"demod_blocks({args.impl}) {ms*1e3:8.2f} ms -> {n_samp/ms/1e6:8.1f} Msps")
+    ms, _ = timeit(lambda: BL.demod_blocks(
+        params, total, jre, jim, float(fs), fest, 17.58, 4096, use_pallas))
+    print(f"demod_blocks({use_pallas}) {ms*1e3:8.2f} ms -> "
+          f"{n_samp/ms/1e6:8.1f} Msps")
 
     # FULL single-dispatch path incl. framing + stitching
-    def full():
-        out = BL.demod_frames(params, total, POES_TIP.framer,
-                              plan.max_frames, float(fs), args.window,
-                              args.impl, jre, jim, jtn, fest, 17.58, jb)
-        return out
-    ms, st = timeit(full, lambda o: o[3])
-    print(f"demod_frames({args.impl}) {ms*1e3:8.2f} ms -> {n_samp/ms/1e6:8.1f} Msps  "
-          f"frames={int(np.asarray(st[3]))}")
+    ms, st = timeit(lambda: BL.demod_frames(
+        params, total, POES_TIP.framer, plan.max_frames, float(fs), 4096,
+        use_pallas, jre, jim, fest, 17.58, jb))
+    print(f"demod_frames({use_pallas}) {ms*1e3:8.2f} ms -> "
+          f"{n_samp/ms/1e6:8.1f} Msps  frames={int(np.asarray(st[3]))}")
 
     # host staging cost
     t0 = time.perf_counter()
-    BL.stage_blocks(rr, ii, tt, plan, 0, B, dt)
+    BL.stage_blocks(rr, ii, plan, 0, B, dt)
     print(f"host staging   {(time.perf_counter()-t0)*1e3:8.2f} ms")
     t0 = time.perf_counter()
     jax.device_put(brs).block_until_ready()
